@@ -1,9 +1,9 @@
-"""spasm_tpu — a TPU-native sparse exact linear algebra framework over GF(p).
+"""spasm_tpu — sparse exact linear algebra over GF(p) on an accelerator.
 
 A from-scratch re-design of the capabilities of SpaSM / SpaSM.jl (sparse
-direct solver mod p) for TPU hardware: JAX/XLA/Pallas compute kernels, host
-NumPy orchestration, jax.sharding multi-chip scale-out.  See SURVEY.md for
-the reference feature map this implements.
+direct solver mod p) in JAX: XLA device kernels, host NumPy and OpenMP
+orchestration, jax.sharding multi-device scale-out.  See
+SURVEY.md for the reference feature map this implements.
 
 Memory note: the native Schur/elimination kernels keep per-worker sparse
 accumulators sized to the largest column count ever processed (~24 bytes x
@@ -17,12 +17,15 @@ import os as _os
 import jax as _jax
 
 # dense elimination kernels compile once per shape bucket; a persistent
-# cache makes that a one-time cost per machine.  Opt out by setting
-# SPASM_TPU_NO_JAX_CACHE or configuring jax_compilation_cache_dir yourself.
-if (not _os.environ.get("SPASM_TPU_NO_JAX_CACHE")
+# cache makes that a one-time cost per checkout.  JAX_COMPILATION_CACHE_DIR
+# (or a cache directory configured before import) takes precedence; the
+# default is one fixed directory inside the checkout (listed in .gitignore).
+_CACHE_DIR = _os.path.join(
+    _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))),
+    ".jax_cache")
+if (not _os.environ.get("JAX_COMPILATION_CACHE_DIR")
         and _jax.config.jax_compilation_cache_dir is None):
-    _jax.config.update("jax_compilation_cache_dir",
-                       _os.path.expanduser("~/.cache/spasm_tpu_jax"))
+    _jax.config.update("jax_compilation_cache_dir", _CACHE_DIR)
     _jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
 
 from .field import DEFAULT_PRIME, F0, Field, ZZp, field

@@ -28,7 +28,7 @@ that 44-byte counter-mode block here (see SpasmPRNG).  Three details are
 NOT derivable from the quoted layout and are inferred (libspasm's C
 sources and binaries are not present in this environment to check a
 byte-for-byte match): (1) the memory endianness of the non-hash words
-(we use little-endian, the x86/TPU-host native layout the struct would
+(we use little-endian, the x86 host-native layout the struct would
 have); (2) the output word convention for ``hash[8]`` (we use the SHA-256
 state words, i.e. big-endian interpretation of the digest bytes); (3) the
 rejection-sampling loop of ``spasm_prng_ZZp`` (we draw ``u32 & mask``

@@ -1,7 +1,7 @@
 """Round-granular checkpoint / resume for echelonization.
 
 The reference has no incremental checkpointing (SURVEY.md section 5); its
-persistence is SMS files.  Long TPU runs want better: the multi-round
+persistence is SMS files.  Long device runs want better: the multi-round
 echelonize driver is naturally round-structured, so after every round we
 can persist (U blocks so far, pivot metadata, the current Schur complement,
 row origins, options) and resume exactly where a preempted run stopped.

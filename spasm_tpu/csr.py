@@ -11,7 +11,7 @@ hashing / golden tests rely on this canonicalization.
 entries are appended (mod-reduced on insert, dimensions grow dynamically,
 duplicate entries sum on ``compress()``).
 
-The device-side representation (padded tiles for Pallas kernels) is derived
+The device-side representation (padded static-shape tiles) is derived
 from this container in ops/; orchestration (pivot search, round driver) reads
 the raw numpy arrays directly.
 """

@@ -1,4 +1,4 @@
-"""Batched elimination against an ordered pivot set — the TPU-native
+"""Batched elimination against an ordered pivot set — the batched
 replacement for the reference's per-row sparse triangular solve
 (``spasm_triangular.c`` / ``spasm_reach.c`` DFS, src/SpaSM.jl:623-722)
 and the sparse Schur inner loop (``spasm_scatter.c``, src/SpaSM.jl:619).
@@ -14,7 +14,7 @@ All pivots of one level have final coefficients simultaneously, so a wave is
 one sparse matmul:  B <- B - B[:, cols(level t)] @ U[level t].  The number
 of waves is the elimination-DAG depth, not the pivot count — each wave is a
 large batched SpGEMM (host scipy here; the dense/device variant runs the
-same schedule with MXU modular matmuls in schur.py/ops.dense).
+same schedule with exact modular matmuls in ops/dense.py).
 """
 
 from __future__ import annotations

@@ -10,14 +10,14 @@ Two execution tiers:
 
 * **host**: NumPy ``int64``/``object`` arithmetic — always exact for any
   p < 2**32.  Used for orchestration, tiny tails and oracles.
-* **device**: ``jnp.int32`` arithmetic designed for the TPU VPU.  Tier A
+* **device**: ``jnp.int32`` elementwise arithmetic.  Tier A
   (p < 46341, i.e. p*p/4 < 2**30) multiplies directly in int32; tier B
   (p < 2**31) uses a 16x16-bit split.  All device ops keep values in the
-  balanced representation so they can feed the MXU int8-limb matmul
+  balanced representation so they can feed the int8-limb matmul
   (see ops/matmul.py) without conversion.
 
 This module is pure-Python/NumPy + JAX; there is deliberately no FFI — the
-reference's L3 binding layer disappears on TPU (SURVEY.md section 1).
+reference's L3 binding layer disappears (SURVEY.md section 1).
 """
 
 from __future__ import annotations
@@ -251,11 +251,11 @@ def field(p: int = DEFAULT_PRIME) -> Field:
 
 
 def datatype_choose(p: int) -> str:
-    """TPU analog of ``spasm_datatype_choose`` (src/SpaSM.jl:810): picks the
+    """Device analog of ``spasm_datatype_choose`` (src/SpaSM.jl:810): picks the
     carrier for dense mod-p arithmetic — the number of balanced base-256
     int8 limbs per value:
 
-    * ``'i8l1'`` — p <= 255 (1 MXU pass per matmul)
+    * ``'i8l1'`` — p <= 255 (1 int8 product per matmul)
     * ``'i8l2'`` — p <= 65279 (4 passes; covers the default 42013)
     * ``'i8l3'`` — p <= 16711423 (9 passes)
     * ``'i8l4'`` — p <= 4278124287 (16 passes)

@@ -56,7 +56,7 @@ def simplex_boundary(n: int, k: int, p: int = DEFAULT_PRIME) -> SparseGFp:
     # rank_t strictly decreases in t (removing a smaller element keeps a
     # colex-larger face), so the reversed row is ascending: canonical CSR.
     # Chunked over row blocks: temporaries stay small and page-warm
-    # (first-touch faults are the cost on this VM, utils/hostmem.py).
+    # (first-touch faults can dominate, utils/hostmem.py).
     indices = np.empty(nr * (k + 1), np.int64)
     sign = np.array([(-1) ** t for t in range(k, -1, -1)], np.int64)
     data = np.tile(sign, nr)
@@ -116,7 +116,7 @@ def zipf_sparse(f_or_p, n: int, m: int, mean_nnz: float = 8.0,
                 alpha: float = 1.3, seed: int = 0) -> SparseGFp:
     """Random matrix with ZIPF-SKEWED row weights (a few heavy rows, a
     long tail of light ones) — adversarial for pivot heuristics tuned on
-    uniform-weight boundaries (VERDICT r4 'What's weak' item 7)."""
+    uniform-weight boundaries."""
     f = f_or_p if not isinstance(f_or_p, int) else field(f_or_p)
     rng = np.random.default_rng(seed)
     w = rng.zipf(alpha, size=n).astype(np.int64)
@@ -142,8 +142,8 @@ def mixed_block_matrix(f_or_p, seed: int = 0, scale: int = 1,
     dense-ish random block and a zipf-skewed hyper-sparse block — under
     random row/column permutations.  Mixed densities + skewed weights +
     hidden low-rank structure exercise pivot search, density estimation
-    and the dense/low-rank finishes off the uniform-boundary happy path
-    (VERDICT r4 missing item 5).  Rank is validated against the big-int
+    and the dense/low-rank finishes off the uniform-boundary happy path.
+    Rank is validated against the big-int
     oracle / certificates in the tests."""
     import scipy.sparse as sp
 

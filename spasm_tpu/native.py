@@ -8,9 +8,10 @@ host-native speed is irreplaceable"):
   the host analog of the reference's scatter/schur hot loop
   (src/SpaSM.jl:619-621, 758-770), used by the elimination waves.
 
-Each shared library is compiled on first use from csrc/ into a per-user
-cache keyed by a source hash; everything degrades gracefully to the
-NumPy/scipy implementations if no compiler is available.
+Each shared library is compiled on first use from csrc/ into
+``<checkout>/.build/native/`` (listed in .gitignore), keyed by a source
+hash; everything degrades to the NumPy/scipy implementations if no
+compiler is available, with a warning on stderr.
 """
 
 from __future__ import annotations
@@ -23,8 +24,9 @@ import sys
 
 import numpy as np
 
-_CSRC = os.path.join(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))), "csrc")
+_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_CSRC = os.path.join(_ROOT, "csrc")
+_BUILD = os.path.join(_ROOT, ".build", "native")
 _libs: dict = {}
 
 
@@ -32,15 +34,16 @@ def _build(name: str, extra_flags=()):
     src = os.path.join(_CSRC, name + ".c")
     with open(src, "rb") as fh:
         tag = hashlib.sha256(fh.read()).hexdigest()[:16]
-    cache = os.path.join(os.path.expanduser("~/.cache/spasm_tpu_native"))
-    os.makedirs(cache, exist_ok=True)
-    sofile = os.path.join(cache, f"{name}_{tag}.so")
+    os.makedirs(_BUILD, exist_ok=True)
+    sofile = os.path.join(_BUILD, f"{name}_{tag}.so")
     if not os.path.exists(sofile):
         cc = os.environ.get("CC", "cc")
-        cmd = [cc, "-O3", "-shared", "-fPIC", *extra_flags,
-               "-o", sofile + ".tmp", src]
+        # per-process temporary name: concurrent first builds (pytest
+        # workers) each write their own file and rename atomically
+        tmp = f"{sofile}.{os.getpid()}.tmp"
+        cmd = [cc, "-O3", "-shared", "-fPIC", *extra_flags, "-o", tmp, src]
         subprocess.run(cmd, check=True, capture_output=True)
-        os.replace(sofile + ".tmp", sofile)
+        os.replace(tmp, sofile)
     return ctypes.CDLL(sofile)
 
 
@@ -88,7 +91,7 @@ def _configure_parser(lib):
 
 
 def get_lib():
-    return _load("sms_parser", _configure_parser, extra_flags=("-fopenmp",))
+    return _lib("sms_parser")
 
 
 def parse_sms_native(raw: bytes):
@@ -181,7 +184,7 @@ def schur_update_native(f, B, C, U):
     native library is unavailable (callers fall back to scipy)."""
     import scipy.sparse as sp
 
-    lib = _load("schur_mod", _configure_schur, extra_flags=("-fopenmp",))
+    lib = _lib("schur_mod")
     if lib is None:
         return None
     q, m = B.shape
@@ -243,8 +246,7 @@ def _configure_scatter(lib):
 
 
 def _scatter_lib():
-    return _load("scatter_mod", _configure_scatter,
-                 extra_flags=("-fopenmp",))
+    return _lib("scatter_mod")
 
 
 def _scatter(name, ufunc, identity, tgt, idx, val):
@@ -304,8 +306,7 @@ def levels_from_sorted_edges(src, dst, r):
     """Longest-path levels for a src-ascending-sorted edge list with
     src < dst (one sequential C pass; see csrc/scatter_mod.c).  Returns
     None when the native library is unavailable."""
-    lib = _load("scatter_mod", _configure_scatter,
-                extra_flags=("-fopenmp",))
+    lib = _lib("scatter_mod")
     if lib is None:
         return None
     if not hasattr(lib, "_levels_configured"):
@@ -330,7 +331,7 @@ def schur_update_qinv_native(f, B, qinv, U, rows=None):
     canonical scipy csr or None (callers fall back)."""
     import scipy.sparse as sp
 
-    lib = _load("schur_mod", _configure_schur, extra_flags=("-fopenmp",))
+    lib = _lib("schur_mod")
     if lib is None:
         return None
     if not hasattr(lib, "_qinv_configured"):
@@ -411,7 +412,7 @@ def gplu_native(f, S, record_l: bool):
     int64 data.  Returns (indptr, indices, data, pcol, prow, Ltriples) with
     Ltriples = (li, lk, lv) or None; or None when the native library is
     unavailable / indices exceed int32."""
-    lib = _load("gplu_mod", _configure_gplu)
+    lib = _lib("gplu_mod")
     if lib is None:
         return None
     parts = _csr_parts(S)
@@ -485,8 +486,7 @@ def _configure_pivot_scan(lib):
 
 
 def _pivot_scan_lib():
-    return _load("pivot_scan", _configure_pivot_scan,
-                 extra_flags=("-fopenmp",))
+    return _lib("pivot_scan")
 
 
 def pivot_scan_native(indptr, indices, row_used, col_selected, pos_of_row):
@@ -583,7 +583,7 @@ def schur_update_ranged_native(f, Pp, Pj, Px, q, m, qinv, klo, khi):
     qinv (csrc/schur_mod.c ranged variant — no prefix/coefficient
     materialization).  Returns (indptr, indices, data) with int64/int32/
     int64 dtypes, or None when the native library is unavailable."""
-    lib = _load("schur_mod", _configure_schur, extra_flags=("-fopenmp",))
+    lib = _lib("schur_mod")
     if lib is None:
         return None
     if not hasattr(lib, "_ranged_configured"):
@@ -647,7 +647,7 @@ def mutual_reduce_native(f, W, qinv, offs, depth, nnz_cap, rowperm=None):
     when the native library is unavailable (callers fall back)."""
     import scipy.sparse as sp
 
-    lib = _load("mutual_mod", _configure_mutual, extra_flags=("-fopenmp",))
+    lib = _lib("mutual_mod")
     if lib is None:
         return None
     pw = _csr_parts(W)
@@ -711,7 +711,7 @@ def cascade_nnz_native(f, sample, U, piv_cols):
     ordered pivot block U (unit pivots, append invariant) via the per-row
     heap cascade (csrc/cascade_mod.c) — the Schur density estimator's
     engine.  Returns the count, or None when unavailable."""
-    lib = _load("cascade_mod", _configure_cascade)
+    lib = _lib("cascade_mod")
     if lib is None:
         return None
     ps = _csr_parts(sample)
@@ -755,7 +755,7 @@ def gather_rows_native(S, rows):
     (csrc/rowops_mod.c), or None when unavailable."""
     import scipy.sparse as sp
 
-    lib = _load("rowops_mod", _configure_rowops, extra_flags=("-fopenmp",))
+    lib = _lib("rowops_mod")
     if lib is None:
         return None
     ps = _csr_parts(S)
@@ -785,7 +785,7 @@ def scale_rows_native(f, A, scale, normalize):
     balanced mod-p when normalize, raw product otherwise (the +-1 fast
     path).  A.data must be int64.  Returns True, or None when
     unavailable (caller falls back to the numpy repeat/gather)."""
-    lib = _load("rowops_mod", _configure_rowops, extra_flags=("-fopenmp",))
+    lib = _lib("rowops_mod")
     if lib is None or A.data.dtype != np.int64 or not A.data.flags.c_contiguous:
         return None
     indptr = np.ascontiguousarray(A.indptr, dtype=np.int64)
@@ -859,7 +859,7 @@ def cascade_eliminate_native(f, B, U, piv_cols):
     and O(m) sorts.  Returns None when unavailable."""
     import scipy.sparse as sp
 
-    lib = _load("cascade_mod", _configure_cascade)
+    lib = _lib("cascade_mod")
     if lib is None:
         return None
     pb = _csr_parts(B)
@@ -929,7 +929,7 @@ def prng_blocks_native(seed, prime, seq, counter, nblocks):
         # would silently wrap and repeat the stream — refuse instead, so
         # the hashlib fallback fails loudly via struct.pack('<I')
         return None
-    lib = _load("prng_mod", _configure_prng, extra_flags=("-fopenmp",))
+    lib = _lib("prng_mod")
     if lib is None:
         return None
     out = np.empty(nblocks * 8, dtype=np.uint32)
@@ -943,7 +943,7 @@ def normalize_i64_native(x, p):
     """Balanced mod-p reduction of a contiguous int64 vector in one OpenMP
     pass (csrc/rowops_mod.c) — same result as Field.normalize's numpy
     chain.  Returns a fresh int64 array, or None when unavailable."""
-    lib = _load("rowops_mod", _configure_rowops, extra_flags=("-fopenmp",))
+    lib = _lib("rowops_mod")
     if lib is None:
         return None
     out = np.empty(x.shape[0], dtype=np.int64)
@@ -969,7 +969,7 @@ def dense_trisolve_native(kind, A, b, perm, p):
     (x @ U == b, unit pivots located by perm=q).  Returns the solution
     vector, None if unsolvable, or NotImplemented when the native library
     is unavailable (caller falls back to the Python loop)."""
-    lib = _load("trisolve_mod", _configure_trisolve)
+    lib = _lib("trisolve_mod")
     if lib is None:
         return NotImplemented
     b = np.ascontiguousarray(b, dtype=np.int64)
@@ -1002,3 +1002,29 @@ def release_native_scratch():
         lib.spasm_tpu_spa_release.argtypes = []
         lib._release_configured = True
     lib.spasm_tpu_spa_release()
+
+
+# every native library: configure function and extra compiler flags
+_LIBS = {
+    "sms_parser": (_configure_parser, ("-fopenmp",)),
+    "schur_mod": (_configure_schur, ("-fopenmp",)),
+    "scatter_mod": (_configure_scatter, ("-fopenmp",)),
+    "gplu_mod": (_configure_gplu, ()),
+    "pivot_scan": (_configure_pivot_scan, ("-fopenmp",)),
+    "mutual_mod": (_configure_mutual, ("-fopenmp",)),
+    "cascade_mod": (_configure_cascade, ()),
+    "rowops_mod": (_configure_rowops, ("-fopenmp",)),
+    "prng_mod": (_configure_prng, ("-fopenmp",)),
+    "trisolve_mod": (_configure_trisolve, ()),
+}
+
+
+def _lib(name: str):
+    return _load(name, *_LIBS[name])
+
+
+def load_all() -> dict:
+    """Build (if needed) and load every native library.  Returns
+    {name: True if the native library loaded, False if that component
+    runs on its NumPy fallback}."""
+    return {name: _lib(name) is not None for name in _LIBS}

@@ -1,10 +1,10 @@
-"""Exact dense matrix multiply over GF(p) on the TPU MXU.
+"""Exact dense matrix multiply over GF(p) on the accelerator.
 
-This is the TPU-native replacement for the reference's L1 dense layer
-(FFLAS-FFPACK driven through ``spasm_ffpack.cpp``, src/SpaSM.jl:802-812):
-where FFPACK uses float BLAS with delayed modular reduction, we use the
-MXU's native int8 x int8 -> int32 matmul with a balanced base-256 limb
-decomposition (modmul.to_limbs):
+This is the replacement for the reference's L1 dense layer (FFLAS-FFPACK
+driven through ``spasm_ffpack.cpp``, src/SpaSM.jl:802-812): where FFPACK
+uses float BLAS with delayed modular reduction, we use the exact
+int8 x int8 -> int32 matrix product (integer tensor cores on the GPU)
+with a balanced base-256 limb decomposition (modmul.to_limbs):
 
     x = sum_i l_i 256**i,   l_i in [-128, 127]  (int8)
 
@@ -37,21 +37,15 @@ def _k_chunk(nl: int) -> int:
     return max(128, (1 << 30) // (16384 * nl) // 128 * 128)
 
 
-def modmatmul(f: Field, a, b, force: str | None = None):
+def modmatmul(f: Field, a, b):
     """C = a @ b (mod p), balanced int32 in, balanced int32 out.
 
     a: (n, k) int32, b: (k, m) int32.  Traced/jittable; `f` is static.
-    Dispatches to the fused Pallas kernel (ops/pallas_matmul.py) on TPU for
-    supported primes and non-trivial sizes; force='jnp'/'pallas' overrides.
+    The int8 limb products are plain XLA dots (XLA:GPU emits its own
+    Triton int8 GEMMs for them); a fused Pallas kernel with the modular
+    epilogue on chip measured slower on H100 end to end (PERF.md).
     """
     modmul.check_device_prime(f)
-    if force != "jnp":
-        from . import pallas_matmul as pm
-
-        big = a.shape[0] * b.shape[1] >= (1 << 18) and a.shape[1] >= 128
-        if (force == "pallas"
-                or (pm.available() and pm.supported(f) and big)):
-            return pm.modmatmul_pallas(f, a, b)
     nl = num_limbs(f.p)
     n, k = a.shape
     k2, m = b.shape

@@ -1,4 +1,4 @@
-"""Device-side (jnp / TPU VPU) exact GF(p) arithmetic on int32 arrays.
+"""Device-side (jnp) exact GF(p) arithmetic on int32 arrays.
 
 Everything operates on the balanced representation (see field.py) and is
 designed to trace cleanly under ``jax.jit``: the Field is a static Python
@@ -13,8 +13,9 @@ Tiers (Field.tier):
 * tier 'c' (2**31 <= p <= 2**32 - 5): the reference's full prime range
   (src/SpaSM.jl:74).  Balanced values still fit int32 (|v| <= p/2 <
   2**31); sums and lifts can exceed 2**32, so every tier-c primitive runs
-  on uint32 residues with wrap-aware modular adds (TPU has no native
-  int64) — the per-p carrier choice mirrors ``spasm_datatype_choose``
+  on uint32 residues with wrap-aware modular adds (written for a device
+  without native int64; whether int64 is faster on H100 is not measured)
+  — the per-p carrier choice mirrors ``spasm_datatype_choose``
   (src/SpaSM.jl:810).
 """
 
@@ -155,7 +156,7 @@ def _mul_tier_b(f: Field, a, b):
 
 # ------------- tier C: full range 2**31 <= p <= 2**32 - 5 -------------
 #
-# No int64 on the TPU VPU: every step stays in uint32 residues [0, p).
+# No int64: every step stays in uint32 residues [0, p).
 # Sums x + y with x, y < p can wrap past 2**32; _addmod_c detects the wrap
 # (s < x iff wrapped) — a wrapped sum is >= 2**32 > p, and s - p computed
 # in uint32 un-wraps exactly because the true value x + y - p < p < 2**32.
@@ -231,20 +232,38 @@ def _normalize_tier_c(f: Field, x):
 def inv_scalar(f: Field, x):
     """Modular inverse of a (0-d) device value via Fermat: x**(p-2) mod p.
     p is prime, so this matches the reference's extended-gcd inverse
-    (src/SpaSM.jl:386) on nonzero inputs; returns 0 for x == 0."""
+    (src/SpaSM.jl:386) on nonzero inputs; returns 0 for x == 0.
+
+    Tier A unrolls the square-and-multiply (each multiply is two
+    operations).  Tiers B and C run it as a loop over the exponent's
+    bits: unrolled, their ~60 split multiplies made every panel step's
+    program thousands of operations long, and compiling a 1024^2 tier-B
+    dense RREF took minutes on the GPU."""
     check_device_prime(f)
     e = f.p - 2
-    result = jnp.int32(1)
-    base = x
-    while e:
-        if e & 1:
-            result = mul(f, result, base)
-        base = mul(f, base, base)
-        e >>= 1
+    if f.tier == "a":
+        result = jnp.int32(1)
+        base = x
+        while e:
+            if e & 1:
+                result = mul(f, result, base)
+            base = mul(f, base, base)
+            e >>= 1
+        return result
+    bits = jnp.array([(e >> i) & 1 for i in range(e.bit_length())],
+                     jnp.int32)
+
+    def body(i, carry):
+        result, base = carry
+        result = jnp.where(bits[i] == 1, mul(f, result, base), result)
+        return result, mul(f, base, base)
+
+    result, _ = jax.lax.fori_loop(0, bits.shape[0], body,
+                                  (jnp.ones_like(x), x))
     return result
 
 
-# ---------------- int8 limb (de)composition for the MXU ----------------
+# ---------------- int8 limb (de)composition for the matmul -------------
 
 
 def to_limbs(f: Field, x, nl: int):
@@ -253,9 +272,9 @@ def to_limbs(f: Field, x, nl: int):
     ``x == sum_i limbs[i] * 256**i``.
 
     Returns an array of shape ``x.shape + (nl,)``, dtype int8.  This is the
-    entry format for the MXU int8 modular matmul (ops/matmul.py): base 256
-    needs only 2 limbs (4 MXU passes) for p <= 65792, vs 3 limbs (9 passes)
-    in base 128.
+    entry format for the int8 modular matmul (ops/matmul.py): base 256
+    needs only 2 limbs (4 int8 products) for p <= 65792, vs 3 limbs (9
+    products) in base 128.
     """
     limbs = []
     v = x.astype(jnp.int32)

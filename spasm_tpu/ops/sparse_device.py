@@ -1,7 +1,7 @@
 """Device-resident sparse wave elimination over GF(p).
 
 The host path (elimination.py) runs the level-wave Schur updates through
-scipy SpGEMM.  This module is the TPU-resident equivalent for matrices too
+scipy SpGEMM.  This module is the device-resident equivalent for matrices too
 large / too hot for host round trips: the working matrix lives on device as
 fixed-capacity COO, pivot rows as a padded ELL block, and one wave is an
 expand -> multi-key sort -> segment-reduce -> compact pipeline:
@@ -38,8 +38,8 @@ def _segments_sum_mod(f: Field, vals, seg_change):
     static-slice shift + flag-masked balanced add.  Each add keeps values
     in [-p/2, p/2] via conditional +-p folds (division-free; exact for
     every tier incl. 'c').  Replaces a lax.associative_scan with a custom
-    tuple monoid, whose TPU lowering stalled at 2^25-element pools
-    (NOTES_r2.md).  v[i] = prefix sum of i's segment up to i; the LAST
+    tuple monoid, whose lowering stalled at 2^25-element pools on the
+    first (non-GPU) accelerator (git history).  v[i] = prefix sum of i's segment up to i; the LAST
     element of each run holds the full segment sum."""
     n = vals.shape[0]
     half = jnp.int32(f.halfp)
@@ -178,9 +178,10 @@ def eliminate_device(f: Field, U, piv_cols, levels, B, cap_factor=4,
     batched merge (ops/sparse_onepass.py) — it eliminates against the
     UNREDUCED pivot block level by level, so it handles the dense-U*
     regime the one-pass work-budget gate rejects.  Single-chip
-    economics (measured, tools/device_crossover.py, NOTES_r4/NOTES_r5):
-    waves lose to the OpenMP host kernel by 2-3 orders of magnitude
-    (d7 round 0: 17 s vs 0.04 s) and the one-pass merge by ~7-9x; keep
+    economics on the first (non-GPU) accelerator (tools/
+    device_crossover.py, git history): waves lost to the OpenMP host
+    kernel by 2-3 orders of magnitude and to the one-pass merge by ~7-9x
+    (not measured on H100); keep
     `device_sparse_min_nnz` at its 0 (disabled) default on one chip.
     The supported device use is the MESH path (one-pass tiles sharded
     over the mesh, this module's waves as overflow/dense-U* fallback)."""

@@ -19,8 +19,8 @@ def initialize(coordinator_address: str | None = None,
                process_id: int | None = None):
     """Bring up the jax.distributed runtime (no-op when single-process).
 
-    On TPU pods the arguments are auto-detected from the environment; on
-    CPU/GPU fleets pass them explicitly."""
+    Pass the coordinator address, process count and process id
+    explicitly: nothing detects a GPU cluster by itself."""
     if num_processes is not None and num_processes > 1 or coordinator_address:
         jax.distributed.initialize(
             coordinator_address=coordinator_address,

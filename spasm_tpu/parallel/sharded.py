@@ -12,7 +12,7 @@ module is its scale-out replacement, designed for ICI collectives:
 * the C elected FL pivots form a unit upper-triangular panel T = U[:, cols];
   we Jordan-normalize with an exact log-depth Neumann inverse
   (T^{-1} = prod (I + (-N)^{2^i}), N = T - I nilpotent) so the Schur update
-  is ONE exact int8-limb MXU matmul per shard per round:
+  is ONE exact int8-limb matmul per shard per round:
       X <- X - X[:, cols] @ (T^{-1} U).
 
 Everything is static-shaped: pivot counts live in masks, the panel width C
@@ -101,8 +101,9 @@ def _elimination_round_local(f: Field, C: int, axis: str, X, row_offset):
     # with the Schur compute: first a small (C, C) psum of just the pivot
     # columns (enough to build the panel inverse), then the full panel in
     # column stripes — each stripe's all-reduce is independent of the
-    # previous stripe's MXU update, so XLA's async collectives hide the
-    # exchange behind the matmuls (the ICI analog of the reference's
+    # previous stripe's matmul update, so XLA's async collectives hide
+    # the exchange behind the matmuls (the device-link analog of the
+    # reference's
     # OpenMP overlap, src/SpaSM.jl:470-475).
     win_row = br_g[cols_safe]                         # global row id per slot
     local_idx = win_row - row_offset
@@ -139,7 +140,7 @@ def _elimination_round_local(f: Field, C: int, axis: str, X, row_offset):
             # merges every stripe psum into ONE tuple all-reduce (seen in
             # the optimized HLO at these sizes), i.e. a single blocking
             # exchange; with the chain, stripe s+1's all-reduce runs
-            # concurrently with stripe s's MXU updates (which the psum
+            # concurrently with stripe s's matmul updates (which the psum
             # does not depend on) — the intended exchange/compute overlap.
             sl, _ = jax.lax.optimization_barrier((sl, prev_Us))
         Us = jax.lax.psum(sl, axis)                   # stripe exchange

@@ -21,7 +21,7 @@ previously selected pivot column.  Then, by construction:
 
 This replaces the reference's per-row DFS (spasm_reach.c) with *static*
 level scheduling (see elimination.py), which is what makes the Schur and
-solve paths batchable on the TPU.
+solve paths batchable on the device.
 
 Strategies implemented:
 
@@ -292,7 +292,7 @@ def greedy_pivots(A: SparseGFp, col_selected, row_used, positions,
         # pools to the mop-up too: its lightest-first exact insertion
         # harvests measurably better pivot sets on dense-overlap rounds
         # (irregular subcomplex end-to-end 1.2 s vs 2.9 s with a
-        # relative-only threshold — NOTES_r5)
+        # relative-only threshold; git history)
         if rows_a.size < max(16, rows_c.size // 64):
             break
     # sequential mop-up on the remaining candidates: the batched

@@ -1,11 +1,12 @@
 """Host memory tuning for slow-first-touch environments.
 
-Measured on this VM (round 3): anonymous-page first-touch faults run at
-~10-20 MB/s (hypervisor-level lazy backing), ~1000x slower than a warm
-rewrite of the same pages.  glibc returns every >=128 KiB allocation to
+Measured on the first (non-GPU) host the system ran on: anonymous-page
+first-touch faults ran at ~10-20 MB/s (hypervisor-level lazy backing),
+~1000x slower than a warm rewrite of the same pages; not measured on the
+H100 host.  glibc returns every >=128 KiB allocation to
 the OS on free (mmap/munmap), so EVERY large NumPy temporary pays the
 fault cost again — this, not CPU work, dominated the d9-scale (53M nnz)
-host phases and explains round 2's "2-5x iowait noise".
+host phases there.
 
 ``tune_host_malloc()`` flips glibc to serve all allocations from the
 sbrk heap and never trim it (mallopt M_MMAP_MAX=0, M_TRIM_THRESHOLD=-1):
@@ -16,7 +17,8 @@ spasm_tpu can call it explicitly.  Opt out with
 SPASM_TPU_NO_MALLOC_TUNE=1.
 
 (The reference leaves this to the platform; it is an environment lever,
-not an algorithmic one — measured 400x on repeated 200 MB fills here.)
+not an algorithmic one — measured 400x on repeated 200 MB fills on that
+host.)
 """
 
 from __future__ import annotations

@@ -1,5 +1,5 @@
 """Structured profiling hooks (SURVEY.md section 5: the reference has only
-wall-clock stderr lines; TPU runs want real traces).
+wall-clock stderr lines; device runs want real traces).
 
 ``phase("name")`` is a nestable timer whose records accumulate in
 ``phase_records`` (and echo through the log sink when verbose);

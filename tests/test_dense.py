@@ -198,3 +198,32 @@ def test_fused_blocked_finish_chunked(rng):
     assert rank_o == r_d
     assert (np.sort(piv_cols_loc) == pc_o).all()
     assert (got == R_o % f.p).all()
+
+
+@pytest.mark.parametrize("p", [104729, 16777213, 2147483629])
+def test_panel_eliminate_matches_host(p, rng):
+    # one XLA panel step == the host Jordan RREF of that panel (same
+    # first-candidate pivot rule), and its correction G reproduces it:
+    # P_final == P + G @ P[prows] (mod p)
+    import jax.numpy as jnp
+
+    from spasm_tpu.ops.dense import _host_rref, _panel_eliminate
+
+    f = field(p)
+    n, c = 48, 16
+    P = f.rand((n, c), rng)
+    P[3, 0] = 0
+    P[10, :] = 0
+    Pf, G, prows, pcols, found, ispiv = (np.asarray(x) for x in
+                                         _panel_eliminate(
+        f, jnp.asarray(P, jnp.int32), jnp.zeros(n, bool), 0, c))
+    want = _host_rref(f, P, False)
+    r = want["rank"]
+    assert int(found.sum()) == r and found[:r].all()
+    np.testing.assert_array_equal(prows[:r], want["piv_rows"])
+    np.testing.assert_array_equal(pcols[:r], want["piv_cols"])
+    np.testing.assert_array_equal(Pf, want["R"])
+    assert ispiv.sum() == r and ispiv[want["piv_rows"]].all()
+    corr = G.astype(object)[:, :r] @ P.astype(object)[prows[:r]]
+    np.testing.assert_array_equal(
+        f.normalize(P.astype(object) + corr).astype(np.int64), Pf)

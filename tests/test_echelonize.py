@@ -508,9 +508,8 @@ def test_L_factor_reduced_rounds(rng):
 def test_accelerator_finish_gate_prefers_dense(monkeypatch, rng):
     """On an accelerator the finish density gate drops to
     device_sparsity_threshold: a knife-edge tail (density just under
-    sparsity_threshold) must take the dense MXU finish instead of host
-    GPLU (measured 40 s vs ~3 s at 4096^2 d=0.05 — NOTES_r5), with the
-    identical rank."""
+    sparsity_threshold) must take the dense device finish instead of host
+    GPLU, with the identical rank."""
     import importlib
 
     ech = importlib.import_module("spasm_tpu.echelonize")
@@ -521,3 +520,31 @@ def test_accelerator_finish_gate_prefers_dense(monkeypatch, rng):
     assert fact.dense_piv_start is not None  # dense finish engaged
     assert fact.r == ref.r
     assert rref_of_U(fact) == rref_of_U(ref)
+
+
+def test_auto_dense_budget_scales_with_device_memory(monkeypatch):
+    import importlib
+
+    import jax
+
+    ech = importlib.import_module("spasm_tpu.echelonize")
+
+    class FakeGPU:
+        platform = "gpu"
+        device_kind = "fake"
+
+        def __init__(self, stats):
+            self._stats = stats
+
+        def memory_stats(self):
+            return self._stats
+
+    monkeypatch.setattr(ech, "_AUTO_DENSE_BUDGET", None)
+    monkeypatch.setattr(jax, "devices",
+                        lambda: [FakeGPU({"bytes_limit": 60 << 30})])
+    assert ech._auto_dense_budget() == int((60 << 30) * 0.35) // 4
+    # no memory size is assumed for a device that reports none
+    monkeypatch.setattr(ech, "_AUTO_DENSE_BUDGET", None)
+    monkeypatch.setattr(jax, "devices", lambda: [FakeGPU(None)])
+    with pytest.raises(RuntimeError, match="no memory limit"):
+        ech._auto_dense_budget()

@@ -1,4 +1,4 @@
-"""Irregular structured fixtures (VERDICT r4 item 5): random subcomplex
+"""Irregular structured fixtures: random subcomplex
 boundaries, zipf-skewed rows, mixed-density block matrices — rank/kernel/
 certificate invariants off the uniform-boundary happy path."""
 

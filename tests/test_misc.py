@@ -149,7 +149,7 @@ def test_human_format():
 
 def test_greedy_mopup_unbounded_when_productive():
     """The sequential greedy mop-up continues past its batch size while
-    productive (VERDICT r4 weak 7: the old hard 4096-row cap could leave
+    productive (the old hard 4096-row cap could leave
     harvestable pivots to extra Schur rounds).  Star instance: row 0 =
     {0}, row i = {0, i} — FL takes one row for column 0, FL-cols is
     blocked by the column-0 hit on every row, and the fractional-
@@ -169,3 +169,35 @@ def test_greedy_mopup_unbounded_when_productive():
     assert prows.size == n
     assert counts["greedy"] == n - 1
     assert st.rank(A) == n
+
+
+def _cache_dir_in_child(env_extra):
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = {k: v for k, v in os.environ.items()
+           if k != "JAX_COMPILATION_CACHE_DIR"}
+    env.update(env_extra, JAX_PLATFORMS="cpu")
+    code = ("import jax, spasm_tpu; "
+            "print(jax.config.jax_compilation_cache_dir)")
+    out = subprocess.run([sys.executable, "-c", code], cwd=root, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    return root, out.stdout.strip().splitlines()[-1]
+
+
+def test_compile_cache_default_in_checkout():
+    import os
+
+    root, got = _cache_dir_in_child({})
+    assert got == os.path.join(root, ".jax_cache")
+    with open(os.path.join(root, ".gitignore")) as fh:
+        assert ".jax_cache/" in fh.read().split()
+
+
+def test_compile_cache_env_wins(tmp_path):
+    _, got = _cache_dir_in_child(
+        {"JAX_COMPILATION_CACHE_DIR": str(tmp_path / "cc")})
+    assert got == str(tmp_path / "cc")

@@ -205,7 +205,7 @@ def test_gplu_native_matches_python(monkeypatch):
 
 
 def test_gplu_sequential_scales_dense_cored():
-    """VERDICT r3 item 3: a >=10k-row dense-cored residue (every row pair
+    """A >=10k-row dense-cored residue (every row pair
     interacts through a shared 256-dim core, so every batched strategy
     degrades to ~1 pivot/round) must finish in seconds through the C
     per-row GPLU, with the exact rank."""
@@ -510,3 +510,16 @@ def test_parallel_sms_parser_matches_sequential():
     assert np.array_equal(pi, tri[:, 0])
     assert np.array_equal(pj, tri[:, 1])
     assert np.array_equal(pv, tri[:, 2])
+
+
+def test_native_load_all_builds_every_library():
+    import glob
+    import os
+
+    from spasm_tpu import native
+
+    loaded = native.load_all()
+    names = {os.path.basename(p)[:-2]
+             for p in glob.glob(os.path.join(native._CSRC, "*.c"))}
+    assert set(loaded) == names
+    assert all(loaded.values())

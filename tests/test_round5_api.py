@@ -1,6 +1,6 @@
 """Round-5 API-parity additions: B / LU operator, submatching reindexing,
 notebook PNG display, native dense triangular solves, PRNG byte-convention
-variants (VERDICT r4 items 6-8)."""
+variants."""
 
 import json
 import os
@@ -188,7 +188,7 @@ def test_parallel_parser_first_triple_on_header_line():
     """A >=4MiB SMS buffer whose first triple shares the header line must
     parse identically to the sequential/NumPy tokenizers (which split
     purely by whitespace) — the parallel parser used to skip to the first
-    newline and silently lose that triple (ADVICE r4)."""
+    newline and silently lose that triple."""
     from spasm_tpu.native import parse_sms_native
 
     k = 420_000

@@ -1,6 +1,6 @@
-"""One-pass device qinv Schur (ops/sparse_onepass.py) + the fused Pallas
-merge kernel (ops/pallas_merge.py): exact equality with the host
-eliminate_against_reduced across all arithmetic tiers.
+"""One-pass device qinv Schur (ops/sparse_onepass.py) and its per-row
+sort merge: exact equality with the host eliminate_against_reduced across
+all arithmetic tiers.
 
 The host analog is csrc/schur_mod.c (the reference's scatter loop,
 src/SpaSM.jl:619-621); equality is CSR-exact (same pattern, same balanced
@@ -9,7 +9,6 @@ values)."""
 import numpy as np
 import pytest
 import scipy.sparse as sp
-from jax.experimental.pallas import tpu as pltpu
 
 import jax.numpy as jnp
 
@@ -18,8 +17,8 @@ from spasm_tpu import elimination as E
 from spasm_tpu.csr import SparseGFp
 from spasm_tpu.echelonize import _round_schur_estimate
 from spasm_tpu.fixtures import subcomplex_boundary, zipf_sparse
-from spasm_tpu.ops.pallas_merge import merge_rows_pallas
-from spasm_tpu.ops.sparse_onepass import eliminate_onepass_device
+from spasm_tpu.ops.sparse_onepass import (_onepass_class,
+                                          eliminate_onepass_device)
 from spasm_tpu.pivots import find_structural_pivots
 
 
@@ -133,49 +132,42 @@ def test_onepass_subcomplex_boundary():
 
 
 @pytest.mark.parametrize("p", [42013, 2**31 - 19, 2**32 - 5])
-def test_pallas_merge_kernel_exact(p, rng):
-    """Fused bitonic-merge kernel == brute-force per-row accumulate
-    (interpret mode on the CPU backend)."""
+def test_onepass_sort_merge_exact(p, rng):
+    """The batched per-row sort + segmented modular sum of one width
+    class == brute-force per-row accumulate of B row + (-c * U rows)."""
     f = st.field(p)
-    R, W, m = 32, 128, 400
-    cols = rng.integers(0, m, (R, W)).astype(np.int32)
-    cols[rng.random((R, W)) < 0.3] = m
-    vals = rng.integers(-(p // 2), p // 2 + 1, (R, W)).astype(np.int64)
-    vals = vals.astype(np.int32)
-    vals[cols == m] = 0
-    with pltpu.force_tpu_interpret_mode():
-        oc, ov, keep = merge_rows_pallas(f, jnp.asarray(cols),
-                                         jnp.asarray(vals), m)
-    oc, ov, keep = np.asarray(oc), np.asarray(ov), np.asarray(keep)
+    R, Wb, H, Ku, nref, m = 32, 16, 4, 8, 12, 200
+
+    def balanced(shape):
+        return rng.integers(-(p // 2), p // 2 + 1, shape).astype(np.int32)
+
+    b_cols = rng.integers(0, m, (R, Wb)).astype(np.int32)
+    b_cols[rng.random((R, Wb)) < 0.3] = m        # dead slots
+    b_vals = np.where(b_cols < m, balanced((R, Wb)), 0).astype(np.int32)
+    u_cols = rng.integers(0, m, (nref, Ku)).astype(np.int32)
+    u_cols[rng.random((nref, Ku)) < 0.2] = m
+    u_vals = np.where(u_cols < m, balanced((nref, Ku)), 0).astype(np.int32)
+    hit_k = rng.integers(0, nref, (R, H)).astype(np.int32)
+    hit_c = balanced((R, H))
+    hit_ok = rng.random((R, H)) < 0.7
+    oc, ov, keep, cnt = (np.asarray(x) for x in _onepass_class(
+        f, *(jnp.asarray(x) for x in (b_cols, b_vals, hit_k, hit_c, hit_ok,
+                                      u_cols, u_vals)), m))
+    assert int(cnt) == int(keep.sum())
     for i in range(R):
         ref = {}
-        for c, v in zip(cols[i], vals[i]):
-            if c == m:
-                continue
-            ref[c] = (ref.get(c, 0) + int(v)) % p
+        terms = [(c, int(v)) for c, v in zip(b_cols[i], b_vals[i])]
+        for h in range(H):
+            if hit_ok[i, h]:
+                k = hit_k[i, h]
+                terms += [(c, -int(hit_c[i, h]) * int(v))
+                          for c, v in zip(u_cols[k], u_vals[k])]
+        for c, v in terms:
+            if c != m:
+                ref[c] = (ref.get(c, 0) + v) % p
         ref = {c: (v if v <= p // 2 else v - p)
-               for c, v in ref.items() if v % p}
-        got = {int(c): int(v)
-               for c, v, k in zip(oc[i], ov[i], keep[i]) if k}
+               for c, v in ref.items() if v}
+        got = {int(c): int(v) for c, v, k in zip(oc[i], ov[i], keep[i]) if k}
         assert got == ref
-    # kept slots are sorted by column within each row
-    for i in range(R):
         kc = oc[i][keep[i]]
-        assert (np.diff(kc) > 0).all()
-
-
-def test_onepass_pallas_path_matches_xla(rng):
-    """use_pallas=True (interpret mode) and the lax.sort path agree."""
-    f = st.field(42013)
-    A = SparseGFp.rand(f, 120, 90, 0.08, rng)
-    prows, _, _ = find_structural_pivots(A)
-    if len(prows) == 0:
-        pytest.skip("no pivots")
-    f, Ustar, pcols, S_rest = _round0(A)
-    D1 = eliminate_onepass_device(f, Ustar, pcols, sp.csr_matrix(S_rest),
-                                  min_class_rows=0, use_pallas=False)
-    with pltpu.force_tpu_interpret_mode():
-        D2 = eliminate_onepass_device(f, Ustar, pcols,
-                                      sp.csr_matrix(S_rest),
-                                      min_class_rows=0, use_pallas=True)
-    assert _csr_equal(D1, D2)
+        assert (np.diff(kc) > 0).all()  # kept slots sorted by column

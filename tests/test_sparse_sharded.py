@@ -203,12 +203,12 @@ def test_elections_non_power_of_two_meshes(rng, nd):
 
 
 def test_mesh_echelonize_boundary_1m():
-    """VERDICT r3 item 5: the mesh sparse path at >= 1M nnz — full mesh
+    """The mesh sparse path at >= 1M nnz — full mesh
     echelonize of the d7 boundary on 20 vertices (125,970 x 77,520,
     1,007,760 nnz) over the 8-device emulation mesh, exact rank.  (The
     full d7-on-22 case, 2.56M nnz, was run once at 2/4/8 shards — rank
-    116,280 at every shard count, walls 255/94/101 s — recorded in
-    NOTES_r4.md; this in-suite case keeps the scale coverage without the
+    116,280 at every shard count, walls 255/94/101 s — on CPU-emulated
+    devices (git history); this in-suite case keeps the scale coverage without the
     multi-minute wall.)"""
     from math import comb
 

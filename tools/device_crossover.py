@@ -1,7 +1,6 @@
 #!/usr/bin/env python
 """Measure the host-vs-device crossover for the round Schur update
-(VERDICT r3 item 2; re-run with the one-pass SPA design per VERDICT r4
-item 1): on REAL round workloads, time
+on REAL round workloads: time
 
   host:    mutual_reduce (ranged C kernel) + eliminate_against_reduced
            (qinv C kernel)            -- the production path
@@ -9,13 +8,12 @@ item 1): on REAL round workloads, time
            sort -> segment-reduce per level)  -- the retired-by-
            measurement r3 design, kept for the comparison table
   onepass: host mutual_reduce + ops.sparse_onepass.eliminate_onepass_device
-           (batched per-row merge; the TPU SPA analog of csrc/schur_mod.c)
-           -- both the XLA lax.sort stage and the fused Pallas
-           bitonic-merge stage
+           (batched per-row merge with XLA's sort; the device analog of
+           csrc/schur_mod.c)
 
 on the exact (U, S_rest) pairs the echelonize driver produces at round 0
 of the d7 / d8 boundary cases and a dense-ish random case.  Results are
-checked equal (exact mod-p) and printed as a table for NOTES/PARITY.
+checked equal (exact mod-p) and printed as a table for PERF.md.
 
 Usage: python tools/device_crossover.py [--d8|--d9] [--skip-waves]
 (d9 runs minutes on the wave path; the default cases finish in ~1-2 min)
@@ -109,13 +107,11 @@ def bench_case(name, A, reps=2, skip_waves=False):
            "S_nnz": int(S_rest.nnz), "depth": int(levels.max()) + 1,
            "host_s": round(min(host_w), 3),
            "mreduce_s": round(mreduce_s, 3)}
-    for label, use_pallas in (("onepass_xla", False), ("onepass_pallas",
-                                                       True)):
+    for label in ("onepass_xla",):
         w, stats, D_o = [], {}, None
         for _ in range(reps):
             t0 = time.time()
             D_o = eliminate_onepass_device(f, Ustar, pcols, S_sp,
-                                           use_pallas=use_pallas,
                                            _stats=stats)
             w.append(time.time() - t0)
             if D_o is None:
@@ -146,16 +142,13 @@ def bench_case(name, A, reps=2, skip_waves=False):
         row["waves_eq"] = ok
     print(f"[{name}] host {min(host_w):.2f}s (mreduce {mreduce_s:.2f}s) | "
           f"onepass_xla {row.get('onepass_xla_s')} | "
-          f"onepass_pallas {row.get('onepass_pallas_s')} | "
           f"waves {row.get('waves_s', 'skipped')}", flush=True)
     return row
 
 
 def main():
     import jax
-    import jax.numpy as jnp
 
-    np.asarray(jax.block_until_ready(jnp.arange(8) + 1))  # link warm
     print("backend:", jax.default_backend(), jax.devices()[0])
     skip_waves = "--skip-waves" in sys.argv
     rows = []
@@ -175,15 +168,14 @@ def main():
                                simplex_boundary(26, 8), reps=1,
                                skip_waves=True))
     hdr = ("\n| case | U nnz | S nnz | depth | host s | mreduce s | "
-           "onepass xla s | onepass pallas s | waves s | eq |")
+           "onepass xla s | waves s | eq |")
     print(hdr)
-    print("|" + "---|" * 10)
+    print("|" + "---|" * 9)
     for r in rows:
         print(f"| {r['case']} | {r['U_nnz']} | {r['S_nnz']} | "
               f"{r['depth']} | {r['host_s']} | {r['mreduce_s']} | "
-              f"{r.get('onepass_xla_s')} | {r.get('onepass_pallas_s')} | "
-              f"{r.get('waves_s', '—')} | "
-              f"{r.get('onepass_xla_eq')}/{r.get('onepass_pallas_eq')} |")
+              f"{r.get('onepass_xla_s')} | "
+              f"{r.get('waves_s', '—')} | {r.get('onepass_xla_eq')} |")
 
 
 if __name__ == "__main__":

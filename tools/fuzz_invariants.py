@@ -12,7 +12,7 @@ all arithmetic tiers (p in {3, 5, 257, 42013, 65537, 92681, 2147483629,
   5. solve: b = c @ A  =>  solve(LU, b) @ A == b
 
 Exit nonzero on any violation.  Used as release evidence beyond the
-fixed pytest suite (NOTES_r4.md); runs on the CPU backend in ~4 min.
+fixed pytest suite; runs on the CPU backend in ~4 min.
 """
 import sys
 

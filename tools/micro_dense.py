@@ -12,7 +12,6 @@ import jax.numpy as jnp
 
 import spasm_tpu as st
 from spasm_tpu.ops import dense as dense_ops
-from spasm_tpu.ops import pallas_panel
 from spasm_tpu.ops.matmul import modmatmul
 
 f = st.field(42013)
@@ -20,7 +19,7 @@ rng = np.random.default_rng(0)
 
 
 def timeit(name, fn, reps=3):
-    fn()  # warm/compile
+    jax.block_until_ready(fn())  # warm/compile
     t0 = time.time()
     for _ in range(reps):
         r = fn()
@@ -30,11 +29,11 @@ def timeit(name, fn, reps=3):
     return dt
 
 
-# 1. panel kernel alone: (1024, 128)
+# 1. XLA panel loop alone: (1024, 128)
 P = jnp.asarray(rng.integers(-21000, 21000, (1024, 128)), jnp.int32)
 ispiv = jnp.zeros(1024, bool)
-timeit("panel_eliminate_pallas 1024x128",
-       lambda: pallas_panel.panel_eliminate_pallas(f, 10000, P, ispiv, 0))
+panel = jax.jit(lambda P, ip: dense_ops._panel_eliminate(f, P, ip, 0, 10000))
+timeit("_panel_eliminate 1024x128", lambda: panel(P, ispiv))
 
 # 2. modmatmul (1024, 11264) @ (11264, 10240)
 A = jnp.asarray(rng.integers(-21000, 21000, (1024, 11264)), jnp.int32)

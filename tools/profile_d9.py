@@ -5,7 +5,7 @@ Times the sub-steps inside the round-loop "schur" phase (estimate/split,
 mutual_reduce, eliminate_against_reduced) plus pivot search and assembly,
 by monkey-patching timers around the elimination entry points.  Run on
 the CPU host path (JAX_PLATFORMS=cpu is fine — the d9 rank is
-host-kernel-bound end to end, BENCH_r04 phase split).
+host-kernel-bound end to end).
 """
 import sys
 import time
